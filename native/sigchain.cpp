@@ -1,6 +1,6 @@
-// Host-side signal-chain runtime for the TPU-native Viterbi framework.
+// Host-side signal-chain runtime for the JAX Viterbi framework.
 //
-// The TPU owns the decode compute path (Pallas ACS + chainback kernels);
+// The device owns the decode compute path (ACS + chainback kernels);
 // this library keeps the *host* side of the pipeline native: framing,
 // convolutional encoding, channel simulation, puncturing and scoring run
 // in C++ worker threads so the Python layer never touches per-bit work.

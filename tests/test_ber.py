@@ -16,13 +16,9 @@ framework matches it point-for-point.
 
 These tests are statistical (independent RNG streams), so they assert
 agreement within Poisson counting error over a 1.3x ratio window, with
-budgets sized for >=300 expected errors per point on our side.  They
-need a real accelerator to finish in reasonable time
-(VITERBI_TEST_TPU=1); the non-Cassini gates also finish on the host
-(VITERBI_TEST_TPU=1 VITERBI_PLATFORM=cpu: 21 passed in ~80 s,
-validated 2026-08-17 against the freshly generated 8-code ground
-truth).  The Cassini gates stay TPU-only (plane-kernel interpret mode
-is too slow on CPU).
+budgets sized for >=300 expected errors per point on our side.  Their
+budgets need the GPU to finish in reasonable time, so they are marked
+``gpu``: ``python -m pytest tests/ -m gpu`` on the card.
 """
 
 import json
@@ -32,9 +28,7 @@ import numpy as np
 import pytest
 import jax
 
-pytestmark = pytest.mark.skipif(
-    not os.environ.get("VITERBI_TEST_TPU"),
-    reason="BER regression needs a real accelerator (set VITERBI_TEST_TPU=1)")
+pytestmark = pytest.mark.gpu
 
 _HERE = os.path.dirname(__file__)
 
@@ -61,8 +55,8 @@ def load_reference(code_name, decode_type):
 
 def check_point(code_name, decode_type, EbNo, key, *, block_bits=4096,
                 host_chain=False, seed=0):
-    import viterbidecodercpp_tpu as vt
-    from viterbidecodercpp_tpu import ber
+    import viterbidecodercpp_jax as vt
+    from viterbidecodercpp_jax import ber
 
     code = vt.get_code(code_name)
     config = vt.get_decode_config(vt.DecodeType(decode_type), code.R)
@@ -124,8 +118,8 @@ def test_ber_matches_reference_cdma_k9(decode_type, points):
     ("HARD8", [1.5, 2.0]),
 ])
 def test_ber_matches_reference_cassini_k15(decode_type, points):
-    # the plane Pallas kernel path end to end, vs the reference's own
-    # K=15 AVX sweep
+    # the big-state XLA path end to end, vs the reference's own K=15 AVX
+    # sweep
     key = jax.random.PRNGKey(44)
     for EbNo in points:
         key, sub = jax.random.split(key)
@@ -163,7 +157,7 @@ def test_ber_matches_reference_remaining_codes(code_name, decode_type):
 def test_ber_host_chain_cassini_point():
     """Apples-to-apples pipeline: the native C++ runtime generates the
     channel exactly like the reference harness (mt19937 + identical
-    quantisation maths) and the TPU only decodes - one Cassini point
+    quantisation maths) and the device only decodes - one Cassini point
     through measure_point_host_chain."""
     check_point("Cassini", "SOFT16", 0.5, None, block_bits=1024,
                 host_chain=True, seed=3)

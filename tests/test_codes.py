@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from viterbidecodercpp_tpu import (
+from viterbidecodercpp_jax import (
     COMMON_CODES,
     CodeSpec,
     DecodeType,
@@ -81,7 +81,7 @@ def test_decode_configs_match_reference():
 
 
 def test_dab_puncture_tables():
-    from viterbidecodercpp_tpu import DAB_PI_TABLE, DAB_PI_X
+    from viterbidecodercpp_jax import DAB_PI_TABLE, DAB_PI_X
 
     assert len(DAB_PI_TABLE) == 24
     for i, pi in enumerate(DAB_PI_TABLE):

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from viterbidecodercpp_tpu import DAB_PI_TABLE, get_code
-from viterbidecodercpp_tpu.ops import encoder as enc
-from viterbidecodercpp_tpu.ops import numpy_ref as ref
+from viterbidecodercpp_jax import DAB_PI_TABLE, get_code
+from viterbidecodercpp_jax.ops import encoder as enc
+from viterbidecodercpp_jax.ops import numpy_ref as ref
 
 
 def test_encode_bits_matches_oracle():
@@ -51,7 +51,7 @@ def test_byte_stream_encoder_matches_bulk():
     emits R bytes per input byte, encoded bits packed LSB-first in
     t*R + j stream order (convolutional_encoder_shift_register.h:40-62).
     """
-    from viterbidecodercpp_tpu import get_code
+    from viterbidecodercpp_jax import get_code
     code = get_code("Voyager")
     rng = np.random.RandomState(2)
     data = rng.randint(0, 256, 16, dtype=np.uint8)

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from viterbidecodercpp_tpu import (
+from viterbidecodercpp_jax import (
     COMMON_CODES,
     DecodeType,
     ViterbiDecoder,
     get_code,
     get_decode_config,
 )
-from viterbidecodercpp_tpu.ops import jax_core, numpy_ref as ref
+from viterbidecodercpp_jax.ops import jax_core, numpy_ref as ref
 
 
 def make_batch(code, config, nbytes, batch, seed=0, noise=0):
@@ -121,7 +121,7 @@ def test_decoder_state_checkpoint_resume(tmp_path):
     """Save the carry mid-stream, restore in a 'new process', finish the
     decode - the explicit checkpoint/resume capability (SURVEY.md
     section 5)."""
-    from viterbidecodercpp_tpu.decoder import DecoderState
+    from viterbidecodercpp_jax.decoder import DecoderState
 
     code = get_code("Voyager")
     dec = ViterbiDecoder(code, DecodeType.SOFT16, backend="xla",
@@ -170,25 +170,27 @@ def test_acs_scan_multi_bit_exact(unroll):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
-def test_cassini_chainback_pallas_falls_back():
-    """K=15 (W=512) exceeds the Pallas chainback bound; the wrapper must
-    route to the XLA scan and still decode exactly."""
+def test_cassini_chainback_xla_k14_k15():
+    """The plain XLA traceback at W=256/512 words per row (K=14, K=15),
+    noisy frames, against the oracle's traceback."""
     import jax.numpy as jnp
 
-    from viterbidecodercpp_tpu.ops import chainback_pallas
+    from viterbidecodercpp_jax import CodeSpec
 
-    code = get_code("Cassini")
-    config = get_decode_config(DecodeType.SOFT16, code.R)
-    spec = jax_core.make_static_spec(code, config)
-    assert spec.W > 128
-    data, syms = make_batch(code, config, 2, batch=1)
-    syms = jnp.asarray(syms.reshape(1, -1, code.R))
-    m0 = jax_core.initial_metrics(spec, 1)
-    _, packed, _ = jax_core.acs_scan(spec, m0, syms)
-    bits = chainback_pallas.chainback_pallas(
-        spec, packed, jnp.zeros(1, jnp.int32), 16)
-    np.testing.assert_array_equal(
-        np.packbits(np.asarray(bits), axis=-1, bitorder="big"), data)
+    for code in (CodeSpec("K14", 14, (0o25621, 0o33527)),
+                 get_code("Cassini")):
+        config = get_decode_config(DecodeType.SOFT16, code.R)
+        spec = jax_core.make_static_spec(code, config)
+        data, syms = make_batch(code, config, 2, batch=2, noise=60)
+        T = syms.shape[1] // code.R
+        m0 = jax_core.initial_metrics(spec, 2)
+        _, packed, _ = jax_core.acs_scan(
+            spec, m0, jnp.asarray(syms.reshape(2, T, code.R)))
+        bits = np.asarray(jax_core.chainback_scan(
+            spec, packed, jnp.zeros(2, jnp.int32), 16))
+        for b in range(2):
+            _, ed, _ = ref.acs_run(code, config, syms[b])
+            np.testing.assert_array_equal(bits[b], ref.traceback(code, ed, 16))
 
 
 @pytest.mark.parametrize("name,dt,arith", [
@@ -202,7 +204,7 @@ def test_rotated_layout_bit_exact(name, dt, arith):
     (metrics, renorm accumulator, and decoded bits all bit-identical)."""
     import jax.numpy as jnp
 
-    from viterbidecodercpp_tpu.ops import bigstate
+    from viterbidecodercpp_jax.ops import bigstate
 
     code = get_code(name)
     config = get_decode_config(dt, code.R, arith=arith)

@@ -10,16 +10,15 @@ virtual CPU devices join one distributed JAX run and decode with
     (halo ppermute over the inter-process link), and
   * the composed 2-D mesh (data across processes x time within each).
 
-This is the CPU stand-in for DCN+ICI on a real fleet (the analogue of
+This is the CPU stand-in for a real multi-host fleet (the analogue of
 the reference CI running its NEON build under qemu, SURVEY.md
 section 4).  Workers assert exact decodes; any failure propagates as a
 nonzero exit.
 """
 
-import jax
 import pytest
 
-from viterbidecodercpp_tpu.parallel import launch
+from viterbidecodercpp_jax.parallel import launch
 
 
 def test_two_process_dryrun():
@@ -47,12 +46,12 @@ def test_spawn_fleet_failure_paths():
                            success_token="ABSENT")
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2,
-                    reason="needs >= 2 devices (virtual CPU mesh); the "
-                           "1-chip TPU leg skips")
-def test_hybrid_mesh_single_process():
+def test_hybrid_mesh_single_process(need_devices):
     """make_hybrid_mesh on the in-process (virtual 8-device) fleet:
-    axis order is DCN-outer, sizes must cover every device."""
+    across-host axes outer, sizes must cover every device."""
+    import jax
+
+    need_devices(2)
     n = jax.device_count()
     mesh = launch.make_hybrid_mesh(dcn={"data": 2}, ici={"time": n // 2})
     assert mesh.axis_names == ("data", "time")

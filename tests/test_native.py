@@ -9,10 +9,10 @@ import math
 import numpy as np
 import pytest
 
-from viterbidecodercpp_tpu import COMMON_CODES, get_code
-from viterbidecodercpp_tpu.codes import DAB_PI_TABLE
-from viterbidecodercpp_tpu.ops import numpy_ref
-from viterbidecodercpp_tpu.utils import native
+from viterbidecodercpp_jax import COMMON_CODES, get_code
+from viterbidecodercpp_jax.codes import DAB_PI_TABLE
+from viterbidecodercpp_jax.ops import numpy_ref
+from viterbidecodercpp_jax.utils import native
 
 pytestmark = pytest.mark.skipif(
     not native.ensure_built(),   # explicit build opt-in (available() is pure)
@@ -91,7 +91,7 @@ def test_awgn_quantize_statistics_and_determinism():
 
 def test_awgn_noiseless_limit_roundtrip():
     # At very high Eb/No the chain must decode error-free end to end.
-    import viterbidecodercpp_tpu as vt
+    import viterbidecodercpp_jax as vt
 
     code = get_code("Voyager")
     config = vt.get_decode_config(vt.DecodeType.SOFT16, code.R)
@@ -142,8 +142,8 @@ def test_random_bytes_deterministic():
 def test_measure_point_host_chain_noiseless_limit():
     """The native host-chain BER path must report zero errors at very
     high Eb/No (exact decode through the C++ channel chain)."""
-    import viterbidecodercpp_tpu as vt
-    from viterbidecodercpp_tpu import ber
+    import viterbidecodercpp_jax as vt
+    from viterbidecodercpp_jax import ber
 
     code = vt.get_code("Voyager")
     config = vt.get_decode_config(vt.DecodeType.SOFT16, code.R)

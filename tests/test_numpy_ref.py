@@ -8,8 +8,8 @@ tail-terminated stream must invert the encoder exactly
 import numpy as np
 import pytest
 
-from viterbidecodercpp_tpu import COMMON_CODES, DecodeType, get_code, get_decode_config
-from viterbidecodercpp_tpu.ops import numpy_ref as ref
+from viterbidecodercpp_jax import COMMON_CODES, DecodeType, get_code, get_decode_config
+from viterbidecodercpp_jax.ops import numpy_ref as ref
 
 
 def roundtrip(code, config, nbytes, seed=0):

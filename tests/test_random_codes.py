@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from viterbidecodercpp_tpu import (CodeSpec, DecodeType, ViterbiDecoder,
+from viterbidecodercpp_jax import (CodeSpec, DecodeType, ViterbiDecoder,
                                    get_decode_config)
-from viterbidecodercpp_tpu.ops import jax_core, numpy_ref as ref
+from viterbidecodercpp_jax.ops import jax_core, numpy_ref as ref
 
 
 def random_code(rng, K, R):
@@ -57,25 +57,26 @@ def test_random_code_roundtrip_and_oracle(K, R, seed):
     np.testing.assert_array_equal(out, data)
 
 
-def test_random_code_pallas_interpret_exact():
+def test_random_code_gpu_kernel_interpret_exact():
     rng = np.random.RandomState(9)
     code = random_code(rng, 6, 2)
     config = get_decode_config(DecodeType.SOFT8, code.R)
     spec = jax_core.make_static_spec(code, config)
     syms = jnp.asarray(rng.randint(-3, 4, (2, 20, code.R)), jnp.int32)
     m0 = jax_core.initial_metrics(spec, 2)
-    from viterbidecodercpp_tpu.ops import acs_pallas
+    from viterbidecodercpp_jax.ops import triton_kernels
     em, ep, ea = jax_core.acs_scan(spec, m0, syms)
-    pm, pp, pa = acs_pallas.acs_pallas(spec, m0, syms, interpret=True)
+    pm, pp, pa = triton_kernels.acs(spec, m0, syms, interpret=True)
     np.testing.assert_array_equal(np.asarray(em), np.asarray(pm))
     np.testing.assert_array_equal(np.asarray(ep), np.asarray(pp))
+    np.testing.assert_array_equal(np.asarray(ea), np.asarray(pa))
 
 
 def test_random_puncture_pattern_roundtrip():
     """Arbitrary (non-DAB) puncture pattern: noiseless punctured decode
     recovers the data when enough symbols survive."""
-    from viterbidecodercpp_tpu import PunctureSpec, get_code
-    from viterbidecodercpp_tpu.ops import encoder
+    from viterbidecodercpp_jax import PunctureSpec, get_code
+    from viterbidecodercpp_jax.ops import encoder
 
     rng = np.random.RandomState(4)
     code = get_code("Voyager")
@@ -95,27 +96,19 @@ def test_random_puncture_pattern_roundtrip():
     np.testing.assert_array_equal(out[0], data)
 
 
-def test_random_k15_code_plane_kernel():
-    """A random (non-registry) K=15 R=1/3 code through the plane kernel
-    (interpret): the big-state path must be correct for arbitrary
-    polynomials, not just Cassini."""
-    from viterbidecodercpp_tpu.ops import bigstate_pallas as bp
-
+def test_random_k15_code_xla():
+    """A random (non-registry) K=15 R=1/3 code through the decoder's
+    big-state XLA path: correct for arbitrary polynomials, not just
+    Cassini."""
     rng = np.random.RandomState(11)
     code = random_code(rng, 15, 3)
     config = get_decode_config(DecodeType.SOFT16, code.R)
-    spec = jax_core.make_static_spec(code, config)
-    assert bp.supports(spec)
     T = 31
-    syms = rng.randint(-127, 128, (1, T, code.R)).astype(np.int32)
-    m0 = jax_core.initial_metrics(spec, 1)
-    m, packed, acc = bp.acs_plane_pallas(spec, m0, jnp.asarray(syms),
-                                         frames_per_group=1,
-                                         chunks_per_block=1, interpret=True)
-    bits = bp.chainback_plane(spec, packed, jnp.zeros(1, jnp.int32),
-                              T - (code.K - 1))
-    mr, dr, ar = ref.acs_run(code, config, syms[0].reshape(-1))
-    np.testing.assert_array_equal(mr, np.asarray(m)[:, 0])
+    syms = rng.randint(-127, 128, (1, T * code.R)).astype(np.int32)
+    dec = ViterbiDecoder(code, config, backend="xla")
+    bits, err, acc = dec.decode(syms, T - (code.K - 1))
+    mr, dr, ar = ref.acs_run(code, config, syms[0])
+    assert int(np.asarray(err)[0]) == int(mr[0])
     assert ar == int(np.asarray(acc)[0])
     br = ref.traceback(code, dr, T - (code.K - 1))
     np.testing.assert_array_equal(br, np.asarray(bits)[0])

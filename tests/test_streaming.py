@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from viterbidecodercpp_tpu import get_code
-from viterbidecodercpp_tpu.ops import numpy_ref as ref
-from viterbidecodercpp_tpu.streaming import StreamingDecoder
+from viterbidecodercpp_jax import get_code
+from viterbidecodercpp_jax.ops import numpy_ref as ref
+from viterbidecodercpp_jax.streaming import StreamingDecoder
 
 
 def test_streaming_matches_full_decode():
@@ -60,16 +60,13 @@ def test_streaming_latency_and_priming():
         StreamingDecoder(code, "HARD8", window=60, chunk=16)
 
 
-def test_streaming_plane_k15():
-    """K=15 streams through the plane kernel (backend='pallas', interpret
-    on CPU): committed bits must match the full decode, including pushes
-    whose chunk is NOT a multiple of K-1 (exercising the per-chunk
-    schedule re-base + static ring rotation pattern)."""
+def test_streaming_k15_xla():
+    """K=15 streams through the XLA path: committed bits must match the
+    encoded data, including pushes whose chunk is NOT a multiple of K-1."""
     code = get_code("Cassini")
     window, chunk = 56, 8          # chunk % 14 != 0
     sd = StreamingDecoder(code, "SOFT16", window=window, chunk=chunk,
-                          backend="pallas")
-    assert sd._plane
+                          backend="xla")
     rng = np.random.RandomState(7)
     nbytes = 16
     data = rng.randint(0, 256, (1, nbytes), dtype=np.uint8)
@@ -94,19 +91,20 @@ def test_streaming_plane_k15():
     expect = np.unpackbits(data, axis=1, bitorder="big")
     np.testing.assert_array_equal(got, expect)
 
-def test_streaming_rotated_small():
-    """64 <= S <= 4096 streams through the rotated in-place kernel
-    (backend='pallas', interpret on CPU): committed bits must match the
-    xla-backend stream bit-for-bit, including chunks that are NOT a
-    multiple of K-1 (per-push schedule re-base + static ring rotation
-    pattern)."""
+
+def test_streaming_gpu_kernels_match_xla():
+    """The GPU kernels (Pallas interpreter) behind StreamingDecoder: the
+    committed bits and metrics must match the XLA stream bit-for-bit."""
+    from viterbidecodercpp_jax.paths import select_path
+
     code = get_code("Voyager")
-    window, chunk = 72, 9          # chunk % 6 != 0
-    sp = StreamingDecoder(code, "SOFT8", window=window, chunk=chunk,
-                          backend="pallas")
+    window, chunk = 72, 9
     sx = StreamingDecoder(code, "SOFT8", window=window, chunk=chunk,
                           backend="xla")
-    assert sp._rotated and not sp._plane
+    sp = StreamingDecoder(
+        code, "SOFT8", window=window, chunk=chunk,
+        backend=select_path(sx.spec, "cpu", "pallas", interpret=True))
+    assert sp.backend == "pallas"
     rng = np.random.RandomState(8)
     n_push = 16
     stp, stx = sp.reset(2), sx.reset(2)

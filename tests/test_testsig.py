@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from viterbidecodercpp_tpu import DecodeType, get_code, get_decode_config
-from viterbidecodercpp_tpu.utils import testsig
+from viterbidecodercpp_jax import DecodeType, get_code, get_decode_config
+from viterbidecodercpp_jax.utils import testsig
 
 
 def test_awgn_sigma_math():

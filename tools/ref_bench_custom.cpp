@@ -1,9 +1,8 @@
 // Benchmark oracle: time the reference library's update/chainback on a
 // code that is NOT in its 8-entry registry (the registry harness,
 // examples/run_benchmark.cpp, only iterates common_codes.h; its kernel
-// templates themselves instantiate any K — README.md:13).  Used to give
-// the repo's K=14 plane-kernel row a vs-reference ratio (VERDICT r2
-// item 4).
+// templates themselves instantiate any K — README.md:13).  Gives a
+// custom K=14 code a reference rate to compare against.
 //
 // Measurement mirrors the reference's own protocol
 // (run_benchmark.cpp:250-283): duration-bounded repeat loop, separate
@@ -26,8 +25,7 @@
 #include "viterbi/x86/viterbi_decoder_avx_u8.h"
 #include "helpers/decode_type.h"
 
-// The repo's K=14 ablation code: CodeSpec("K14-rand", 14, (0o21675,
-// 0o27123)) — tools/bench_plane.py.
+// A custom K=14 code: CodeSpec("K14-rand", 14, (0o21675, 0o27123)).
 static constexpr size_t K = 14;
 static constexpr size_t R = 2;
 
@@ -84,7 +82,7 @@ int main(int argc, char** argv) {
     std::string mode = argc > 1 ? argv[1] : "soft16";
     size_t block_bits = argc > 2 ? strtoul(argv[2], nullptr, 10) : 2048;
     double seconds = argc > 3 ? atof(argv[3]) : 2.0;
-    // octal 21675, 27123 — the same pair bench_plane.py uses
+    // octal 21675, 27123
     static const uint16_t g[R] = {021675, 027123};
     if (mode == "soft16") {
         auto cfg = get_soft16_decoding_config(R);

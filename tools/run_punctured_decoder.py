@@ -19,11 +19,11 @@ GREEN, RED, RESET = "\033[32m", "\033[31m", "\033[0m"
 
 def main():
     from cli_common import apply_platform
-    apply_platform()   # --cpu / VITERBI_PLATFORM, pre-backend-init
+    apply_platform()   # --cpu, before any backend starts
     import jax.numpy as jnp
-    import viterbidecodercpp_tpu as vt
-    from viterbidecodercpp_tpu import puncture
-    from viterbidecodercpp_tpu.ops import encoder, numpy_ref
+    import viterbidecodercpp_jax as vt
+    from viterbidecodercpp_jax import puncture
+    from viterbidecodercpp_jax.ops import encoder, numpy_ref
 
     code = vt.CodeSpec("DAB FIC mother", 7, (109, 79, 83, 109))
     sched = puncture.dab_fic_schedule(code)

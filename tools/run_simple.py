@@ -16,10 +16,10 @@ import numpy as np
 
 def main():
     from cli_common import apply_platform
-    apply_platform()   # --cpu / VITERBI_PLATFORM, pre-backend-init
+    apply_platform()   # --cpu, before any backend starts
     import jax.numpy as jnp
-    import viterbidecodercpp_tpu as vt
-    from viterbidecodercpp_tpu.ops import encoder
+    import viterbidecodercpp_jax as vt
+    from viterbidecodercpp_jax.ops import encoder
 
     code = vt.get_code("DAB Radio")
     dec = vt.ViterbiDecoder(code, vt.DecodeType.SOFT16)

@@ -3,7 +3,7 @@
 
 Identical Eb/No math (run_snr_ber.cpp:319-325) and stopping rules
 (318-396); the whole inner block loop runs on device (see
-viterbidecodercpp_tpu/ber.py).  Emits the reference's JSON schema
+viterbidecodercpp_jax/ber.py).  Emits the reference's JSON schema
 (run_snr_ber.cpp:402-441) so examples/plot_snr_ber.py-style tooling works
 unmodified; stderr progress lines also mirror the reference.
 
@@ -29,7 +29,7 @@ sys.path.insert(0, "tools")
 
 def main():
     from cli_common import apply_platform
-    apply_platform()   # --cpu / VITERBI_PLATFORM, pre-backend-init
+    apply_platform()   # --cpu, before any backend starts
     from cli_common import add_list_flag, handle_list_flag
 
     ap = argparse.ArgumentParser()
@@ -64,19 +64,15 @@ def main():
         print(f"Timeout must be > 0, got {args.T}", file=sys.stderr)
         return 1
 
-    import viterbidecodercpp_tpu as vt
-    from viterbidecodercpp_tpu import ber
+    import viterbidecodercpp_jax as vt
+    from viterbidecodercpp_jax import ber
 
-    # Resolve the backend the same way ber.measure_point would so the
-    # JSON simd_type records what actually ran (a --cpu run without -s
-    # executes on the XLA scan, not the Pallas kernels).
-    if args.s is None:
-        import jax
-        args.s = "pallas" if jax.default_backend() == "tpu" else "xla"
-    use_pallas = args.s == "pallas"
+    from viterbidecodercpp_jax.ops import jax_core
+    from viterbidecodercpp_jax.paths import select_path
+
     mesh = None
     if args.dp:
-        from viterbidecodercpp_tpu.parallel.mesh import make_mesh
+        from viterbidecodercpp_jax.parallel.mesh import make_mesh
         mesh = make_mesh((args.dp,), ("data",))
     rows = []
     for ci, code in enumerate(vt.COMMON_CODES):
@@ -86,12 +82,16 @@ def main():
             if args.d and dt.value.lower() != args.d:
                 continue
             config = vt.get_decode_config(dt, code.R)
+            # resolved the way ber.measure_point resolves it, so the JSON
+            # simd_type records what actually ran
+            path = select_path(jax_core.make_static_spec(code, config),
+                               backend=args.s or "auto")
             res = ber.sweep(code, config, seed=args.S,
                             max_points=args.D,
                             block_bits=args.L * 8, batch=args.B,
                             max_errors=args.n, bits_scale=args.k,
                             host_chain=args.host_chain,
-                            use_pallas=use_pallas,
+                            backend=path,
                             timeout_seconds=args.T, mesh=mesh)
             for i, p in enumerate(res.points):
                 print(f"name='{code.name}',K={code.K},R={code.R},"
@@ -100,7 +100,7 @@ def main():
             rows.append({
                 "name": code.name,
                 "decode_type": dt.value,
-                "simd_type": (args.s.upper()
+                "simd_type": (path.backend.upper()
                               + ("+HOSTCHAIN" if args.host_chain else "")),
                 "K": code.K,
                 "R": code.R,

@@ -16,18 +16,16 @@ import numpy as np
 
 def main():
     from cli_common import apply_platform
-    apply_platform()   # --cpu / VITERBI_PLATFORM, pre-backend-init
-    from viterbidecodercpp_tpu import get_code
-    from viterbidecodercpp_tpu.ops import numpy_ref as ref
-    from viterbidecodercpp_tpu.streaming import StreamingDecoder
+    apply_platform()   # --cpu, before any backend starts
+    from viterbidecodercpp_jax import get_code
+    from viterbidecodercpp_jax.ops import numpy_ref as ref
+    from viterbidecodercpp_jax.streaming import StreamingDecoder
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--code", default="voyager",
                     choices=["voyager", "cassini"])
     args = ap.parse_args()
     if args.code == "cassini":
-        # K=15 streams through the big-state plane kernel; window/chunk
-        # multiples of K-1 reuse one compiled kernel variant
         code = get_code("Cassini")
         window, chunk, batch, nbytes, noise = 280, 56, 32, 128, 60
     else:

@@ -22,13 +22,11 @@ GREEN, RED, YELLOW, RESET = "\033[32m", "\033[31m", "\033[33m", "\033[0m"
 
 def main():
     from cli_common import apply_platform
-    apply_platform()   # --cpu / VITERBI_PLATFORM, pre-backend-init
-    import jax
-    import viterbidecodercpp_tpu as vt
-    from viterbidecodercpp_tpu.ops import numpy_ref
+    apply_platform()   # --cpu, before any backend starts
+    import viterbidecodercpp_jax as vt
+    from viterbidecodercpp_jax.ops import jax_core, numpy_ref
+    from viterbidecodercpp_jax.paths import select_path
 
-    on_tpu = jax.default_backend() == "tpu"
-    backends = ["xla"] + (["pallas"] if on_tpu else [])
     ariths = ["saturating", "wrapping"]
 
     # (arith, decode_type, code_name) -> reason  (run_tests.cpp:63-65)
@@ -54,6 +52,10 @@ def main():
                                            config.soft_decision_high,
                                            config.soft_decision_low)
                     for d in data])
+                # XLA, and the path the code is routed to on this
+                # platform when that is another one
+                backends = sorted({"xla", select_path(
+                    jax_core.make_static_spec(code, config)).backend})
                 for backend in backends:
                     total += 1
                     reason = skip.get((arith, decode_type, code.name))

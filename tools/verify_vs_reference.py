@@ -36,19 +36,19 @@ def build_probe(tmp):
 def main():
     sys.path.insert(0, os.path.dirname(__file__))
     from cli_common import apply_platform
-    apply_platform()   # --cpu / VITERBI_PLATFORM, pre-backend-init
+    apply_platform()   # --cpu, before any backend starts
     import jax
     import jax.numpy as jnp
-    import viterbidecodercpp_tpu as vt
-    from viterbidecodercpp_tpu.ops import jax_core
-    from viterbidecodercpp_tpu.utils import testsig
+    import viterbidecodercpp_jax as vt
+    from viterbidecodercpp_jax.ops import jax_core
+    from viterbidecodercpp_jax.utils import testsig
 
     frames = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     block_bits = int(sys.argv[2]) if len(sys.argv) > 2 else 2048
 
-    # Voyager exercises the lane-resident Pallas kernel, Cassini the
-    # big-state plane kernel (ops/bigstate_pallas.py) - both checked
-    # bit-for-bit against the reference's own AVX binaries.
+    # Voyager exercises the GPU kernels where the platform routes them,
+    # Cassini the big-state XLA path - both checked bit-for-bit against
+    # the reference's own AVX binaries.
     cases = [("Voyager", "voyager", block_bits,
               [("soft16", 2.0), ("soft8", 2.5), ("hard8", 4.0)]),
              ("Cassini", "cassini", min(block_bits, 512),
